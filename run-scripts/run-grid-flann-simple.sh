@@ -2,8 +2,8 @@
 # Mirrors the reference experiment script of the same name
 # (/root/reference/run-scripts/run-grid-flann-simple.sh). Simple pinhole camera model.
 
-echo "python -m sfm_mvs_pipeline_tpu --forceColoredOutput -Ploglevel=2 -Prun=photogrammetrie -Pimage=./images -Pout=./reconstruction -Pcamera-model=Simple -Pfeature-detector=SIFT -Pfeature-limit=0 -Pomp-feature-threads=8 -Pfeature-matcher=FLANN -Pfeature-sequence=$1 -Pfeature-gridlength=$2 --colored --dense --mesh --stats --artifacts" > run.log
+echo "python -m sfm_mvs_pipeline --forceColoredOutput -Ploglevel=2 -Prun=photogrammetrie -Pimage=./images -Pout=./reconstruction -Pcamera-model=Simple -Pfeature-detector=SIFT -Pfeature-limit=0 -Pomp-feature-threads=8 -Pfeature-matcher=FLANN -Pfeature-sequence=$1 -Pfeature-gridlength=$2 --colored --dense --mesh --stats --artifacts" > run.log
 
-python -m sfm_mvs_pipeline_tpu --forceColoredOutput -Ploglevel=2 -Prun=photogrammetrie -Pimage=./images -Pout=./reconstruction -Pcamera-model=Simple -Pfeature-detector=SIFT -Pfeature-limit=0 -Pomp-feature-threads=8 -Pfeature-matcher=FLANN -Pfeature-sequence=$1 -Pfeature-gridlength=$2 --colored --dense --mesh --stats --artifacts | tee out.log
+python -m sfm_mvs_pipeline --forceColoredOutput -Ploglevel=2 -Prun=photogrammetrie -Pimage=./images -Pout=./reconstruction -Pcamera-model=Simple -Pfeature-detector=SIFT -Pfeature-limit=0 -Pomp-feature-threads=8 -Pfeature-matcher=FLANN -Pfeature-sequence=$1 -Pfeature-gridlength=$2 --colored --dense --mesh --stats --artifacts | tee out.log
 
 ./run-pcl-stats.sh

@@ -1,11 +1,12 @@
 """ATE vs a cv2-oracle reference trajectory on the insel dataset.
 
-The north-star acceptance metric (BASELINE.md): the TPU pipeline's camera
+The north-star acceptance metric (BASELINE.json): this pipeline's camera
 trajectory must match the reference pipeline's on the insel configs. The
 reference binary does not build here, but utils/oracle.py re-enacts its
 exact SfM call stack (SfM.cpp:143-381) with cv2 + an independent scipy LM
-bundle adjustment — no code shared with the TPU path. Both run at full
-resolution (720x405) with the reference CLI defaults; trajectories are
+bundle adjustment — no code shared with this pipeline. Both run on the
+bundled insel frames (360x202, downscaled from the original 720x405) with
+the reference CLI defaults; trajectories are
 compared after sim(3) alignment (utils/metrics.py::trajectory_compare),
 including optical-axis angles, which get no say in the alignment and are
 therefore a genuinely independent check with only 3 cameras.
@@ -16,18 +17,20 @@ import os
 import numpy as np
 import pytest
 
-INSEL = "/root/reference/images/insel"
+INSEL = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "sample_data", "insel",
+)
 
 
-@pytest.mark.skipif(not os.path.isdir(INSEL), reason="insel images not available")
 def test_ate_vs_cv2_oracle(tmp_path):
     import cv2
 
-    from sfm_mvs_pipeline_tpu.cli.app import main
-    from sfm_mvs_pipeline_tpu.ops.pose import aa_to_rotmat
-    from sfm_mvs_pipeline_tpu.utils.checkpoint import load_scene
-    from sfm_mvs_pipeline_tpu.utils.metrics import trajectory_compare
-    from sfm_mvs_pipeline_tpu.utils.oracle import oracle_reconstruct
+    from sfm_mvs_pipeline.cli.app import main
+    from sfm_mvs_pipeline.ops.pose import aa_to_rotmat
+    from sfm_mvs_pipeline.utils.checkpoint import load_scene
+    from sfm_mvs_pipeline.utils.metrics import trajectory_compare
+    from sfm_mvs_pipeline.utils.oracle import oracle_reconstruct
 
     paths = sorted(
         os.path.join(INSEL, n) for n in os.listdir(INSEL)
@@ -48,7 +51,7 @@ def test_ate_vs_cv2_oracle(tmp_path):
     )
     assert rc == 0
     scene = load_scene(str(out / "scene.npz"))
-    assert int(scene.recovered.sum()) == 3, "TPU pipeline must recover all 3 views"
+    assert int(scene.recovered.sum()) == 3, "the pipeline must recover all 3 views"
 
     est_centers, est_R = [], []
     for s in range(3):
@@ -76,7 +79,7 @@ def test_ate_vs_cv2_oracle(tmp_path):
         f"relative rotation mean {cmpres['mean_rel_rot_deg']:.2f} deg "
         f"max {cmpres['max_rel_rot_deg']:.2f} deg, scale {cmpres['scale']:.3f}"
     )
-    # acceptance bounds (BASELINE.md: "ATE within reference bound")
+    # acceptance bounds (BASELINE.json: "ATE within reference bound")
     assert rel_ate < 0.05, f"relative ATE {rel_ate:.3%} exceeds 5% of extent"
     assert cmpres["max_rel_rot_deg"] < 3.0, (
         f"relative rotation deviates {cmpres['max_rel_rot_deg']:.2f} deg "

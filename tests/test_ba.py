@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sfm_mvs_pipeline_tpu.sfm.ba import (
+from sfm_mvs_pipeline.sfm.ba import (
     BAConfig,
     build_track_table,
     run_bundle_adjustment,
 )
-from sfm_mvs_pipeline_tpu.ops.pose import rotmat_to_aa
-from sfm_mvs_pipeline_tpu.models.cameras import CAMERA_MODELS
+from sfm_mvs_pipeline.ops.pose import rotmat_to_aa
+from sfm_mvs_pipeline.models.cameras import CAMERA_MODELS
 
 
 def _scene_arrays(synthetic_scene, rng, noise_pts=0.05, noise_pose=0.01):
@@ -92,7 +92,7 @@ def test_ba_respects_pose_freeze(synthetic_scene, rng):
 
 
 def test_ba_f32_device_dtype(synthetic_scene, rng):
-    """The TPU path: all-f32 arrays still converge to sub-pixel rms."""
+    """The device path: all-f32 arrays still converge to sub-pixel rms."""
     arrays = [
         a.astype(np.float32) if a.dtype.kind == "f" else a
         for a in _scene_arrays(synthetic_scene, rng)
@@ -133,7 +133,7 @@ def test_ba_device_matches_host_solver(synthetic_scene, rng):
 def test_ba_shot_bucket_padding(synthetic_scene, rng):
     """5 real shots pad to the 6-shot bucket: padded shots stay exactly
     frozen and the result matches the unpadded problem."""
-    from sfm_mvs_pipeline_tpu.sfm.ba import _shot_bucket
+    from sfm_mvs_pipeline.sfm.ba import _shot_bucket
 
     assert _shot_bucket(5) == 6
     arrays = _scene_arrays(synthetic_scene, rng)

@@ -4,8 +4,8 @@ import numpy as np
 import cv2
 import jax.numpy as jnp
 
-from sfm_mvs_pipeline_tpu.models import cameras as C
-from sfm_mvs_pipeline_tpu.ops.pose import aa_to_rotmat
+from sfm_mvs_pipeline.models import cameras as C
+from sfm_mvs_pipeline.ops.pose import aa_to_rotmat
 
 
 def _cv_project(pts3d, rvec, tvec, intr):

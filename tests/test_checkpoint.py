@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sfm_mvs_pipeline_tpu.models.scene import Scene
-from sfm_mvs_pipeline_tpu.utils.checkpoint import load_scene, save_scene
-from sfm_mvs_pipeline_tpu.ops import matching as M
+from sfm_mvs_pipeline.models.scene import Scene
+from sfm_mvs_pipeline.utils.checkpoint import load_scene, save_scene
+from sfm_mvs_pipeline.ops import matching as M
 
 
 def test_scene_checkpoint_roundtrip(tmp_path, rng):
@@ -47,7 +47,7 @@ def test_flann_method_agrees_with_exact(rng):
     vt = jnp.ones(F, bool)
 
     bi_e, me = M.match_pair(
-        jnp.asarray(dq), jnp.asarray(dt), vq, vt, backend="jnp", method="bf"
+        jnp.asarray(dq), jnp.asarray(dt), vq, vt, method="bf"
     )
     bi_a, ma = M.match_pair(
         jnp.asarray(dq), jnp.asarray(dt), vq, vt, method="flann"

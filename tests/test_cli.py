@@ -4,14 +4,14 @@ import os
 
 import numpy as np
 
-from sfm_mvs_pipeline_tpu.utils.args import AppArgs
-from sfm_mvs_pipeline_tpu.utils.ply import (
+from sfm_mvs_pipeline.utils.args import AppArgs
+from sfm_mvs_pipeline.utils.ply import (
     read_ply,
     write_camera_frustums_ply,
     write_ply_mesh,
     write_ply_points,
 )
-from sfm_mvs_pipeline_tpu.utils.stats import calculate_statistics, knn_distances
+from sfm_mvs_pipeline.utils.stats import calculate_statistics, knn_distances
 
 
 def test_appargs():
@@ -78,7 +78,7 @@ def test_knn_distances(rng):
 
 
 def test_pcl_stats_cli(tmp_path, rng):
-    from sfm_mvs_pipeline_tpu.cli.app import main
+    from sfm_mvs_pipeline.cli.app import main
 
     pts = rng.normal(size=(200, 3))
     inp = str(tmp_path / "cloud.ply")
@@ -91,7 +91,7 @@ def test_pcl_stats_cli(tmp_path, rng):
 
 
 def test_cli_usage_and_dispatch(capsys):
-    from sfm_mvs_pipeline_tpu.cli.app import main
+    from sfm_mvs_pipeline.cli.app import main
 
     assert main(["--help"]) == 0
     assert "subprogram" in capsys.readouterr().out
@@ -107,11 +107,11 @@ def test_reference_cli_defaults():
     and -Pdense-method rejects typos instead of silently falling back."""
     import pytest
 
-    from sfm_mvs_pipeline_tpu.cli.photogrammetrie import (
+    from sfm_mvs_pipeline.cli.photogrammetrie import (
         _dense_method,
         _feature_cap,
     )
-    from sfm_mvs_pipeline_tpu.sfm.incremental import SfMConfig
+    from sfm_mvs_pipeline.sfm.incremental import SfMConfig
 
     cfg = SfMConfig()
     assert cfg.min_homography_inlier_ratio == 0.4
@@ -138,9 +138,9 @@ def test_reference_cli_defaults():
 def test_pcl_stats_cli_mesh_keeps_faces(tmp_path, rng):
     """A mesh input produces a quality PLY that still has its faces
     (reference writeToNeighborPLY behavior)."""
-    from sfm_mvs_pipeline_tpu.cli import pcl_stats
-    from sfm_mvs_pipeline_tpu.utils.args import AppArgs
-    from sfm_mvs_pipeline_tpu.utils.ply import read_ply, write_ply_mesh
+    from sfm_mvs_pipeline.cli import pcl_stats
+    from sfm_mvs_pipeline.utils.args import AppArgs
+    from sfm_mvs_pipeline.utils.ply import read_ply, write_ply_mesh
 
     pts = rng.normal(size=(50, 3))
     faces = rng.integers(0, 50, (30, 3))
@@ -157,8 +157,8 @@ def test_match_precision_flag():
     """-Pmatch-precision validates its value and reaches SfMConfig."""
     import pytest
 
-    from sfm_mvs_pipeline_tpu.cli.photogrammetrie import _match_precision
-    from sfm_mvs_pipeline_tpu.utils.args import AppArgs
+    from sfm_mvs_pipeline.cli.photogrammetrie import _match_precision
+    from sfm_mvs_pipeline.utils.args import AppArgs
 
     assert _match_precision(AppArgs([])) == "fast"
     assert _match_precision(AppArgs(["-Pmatch-precision=exact"])) == "exact"

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from sfm_mvs_pipeline_tpu.utils.images import (
+from sfm_mvs_pipeline.utils.images import (
     scale_letterbox,
     scale_points,
     scaled_intrinsics,

@@ -4,12 +4,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sfm_mvs_pipeline_tpu.models.scene import Scene
-from sfm_mvs_pipeline_tpu.ops.pairs import unordered_pairs
-from sfm_mvs_pipeline_tpu.ops.pose import camera_center
-from sfm_mvs_pipeline_tpu.sfm.ba import BAConfig
-from sfm_mvs_pipeline_tpu.sfm.incremental import SfMConfig, reconstruct
-from sfm_mvs_pipeline_tpu.utils.metrics import ate_rmse, umeyama_alignment
+from sfm_mvs_pipeline.models.scene import Scene
+from sfm_mvs_pipeline.ops.pairs import unordered_pairs
+from sfm_mvs_pipeline.ops.pose import camera_center
+from sfm_mvs_pipeline.sfm.ba import BAConfig
+from sfm_mvs_pipeline.sfm.incremental import SfMConfig, reconstruct
+from sfm_mvs_pipeline.utils.metrics import ate_rmse, umeyama_alignment
 
 
 def _make_feature_scene(rng, n_cams=5, n_pts=300, F=512, D=32, occl=0.25):
@@ -72,7 +72,6 @@ def test_incremental_reconstruction(feature_scene):
     pairs = unordered_pairs(scene.n_shots)
     cfg = SfMConfig(
         baseline_min_matches=50,
-        matcher_backend="jnp",
         ba=BAConfig(max_iterations=20),
     )
     logs = []
@@ -133,7 +132,6 @@ def test_track_fusion_merges_linked_tracks(feature_scene):
     pairs = unordered_pairs(scene.n_shots)
     cfg = SfMConfig(
         baseline_min_matches=50,
-        matcher_backend="jnp",
         point_merge_distance=0.2,       # generous 3D gate (world units)
         feature_merge_distance=1e9,     # descriptor gate effectively off
         ba=BAConfig(max_iterations=20),
@@ -158,7 +156,7 @@ def test_spatial_merge_collapses_unlinked_tracks():
     """Two tracks that never shared a match but sit within the merge
     distance collapse into one (ref mergePointcloudElement, pure 3D
     distance — Scene.cpp:435-468). A third, distant point survives."""
-    from sfm_mvs_pipeline_tpu.models.scene import Scene
+    from sfm_mvs_pipeline.models.scene import Scene
 
     S, F = 2, 8
     scene = Scene.create(

@@ -1,7 +1,6 @@
 """End-to-end smoke test on the bundled insel dataset (downscaled).
 
-The CPU twin of the reference's `build.sh fast-test` (ref:
-/root/reference/build.sh:233-239): full CLI drive — images -> SIFT ->
+The CPU twin of the reference's `build.sh fast-test` (ref: build.sh:233-239): full CLI drive — images -> SIFT ->
 matching -> incremental SfM -> BA -> PLY/stat outputs. Uses a reduced
 resolution + feature cap so the test stays in CI budget.
 """
@@ -23,7 +22,7 @@ INSEL = os.path.join(
 def test_insel_cli_end_to_end(tmp_path):
     import cv2
 
-    from sfm_mvs_pipeline_tpu.cli.app import main
+    from sfm_mvs_pipeline.cli.app import main
 
     # downscale the three frames into a temp dataset
     data = tmp_path / "insel_small"
@@ -53,8 +52,8 @@ def test_insel_cli_end_to_end(tmp_path):
     assert (out / "scene.npz").exists()
 
     # reconstruction quality: all 3 views recovered with sub-pixel error
-    from sfm_mvs_pipeline_tpu.utils.checkpoint import load_scene
-    from sfm_mvs_pipeline_tpu.utils.stats import reprojection_errors
+    from sfm_mvs_pipeline.utils.checkpoint import load_scene
+    from sfm_mvs_pipeline.utils.stats import reprojection_errors
 
     scene = load_scene(str(out / "scene.npz"))
     assert scene.recovered.sum() == 3
@@ -75,8 +74,8 @@ def test_insel_cli_dense_mesh_end_to_end(tmp_path):
     240x135 with the default rectified engine so it stays in CI budget."""
     import cv2
 
-    from sfm_mvs_pipeline_tpu.cli.app import main
-    from sfm_mvs_pipeline_tpu.utils.ply import read_ply
+    from sfm_mvs_pipeline.cli.app import main
+    from sfm_mvs_pipeline.utils.ply import read_ply
 
     data = tmp_path / "insel_small"
     data.mkdir()
@@ -114,8 +113,8 @@ def test_insel_sequence_mode_recovers_all_views(tmp_path):
     ratio; the cv2 oracle recovers 3/3 on the same config."""
     import cv2
 
-    from sfm_mvs_pipeline_tpu.cli.app import main
-    from sfm_mvs_pipeline_tpu.utils.checkpoint import load_scene
+    from sfm_mvs_pipeline.cli.app import main
+    from sfm_mvs_pipeline.utils.checkpoint import load_scene
 
     data = tmp_path / "insel_small"
     data.mkdir()
@@ -148,8 +147,8 @@ def test_resume_from_checkpoint_inside_out_dir(tmp_path):
     read (FileNotFoundError)."""
     import cv2
 
-    from sfm_mvs_pipeline_tpu.cli.app import main
-    from sfm_mvs_pipeline_tpu.utils.checkpoint import load_scene
+    from sfm_mvs_pipeline.cli.app import main
+    from sfm_mvs_pipeline.utils.checkpoint import load_scene
 
     data = tmp_path / "insel_small"
     data.mkdir()

@@ -1,4 +1,4 @@
-"""Matching stack vs OpenCV BFMatcher oracle + pallas-vs-jnp equivalence."""
+"""Matching stack vs OpenCV BFMatcher oracle + fast/exact precision modes."""
 
 import numpy as np
 import cv2
@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sfm_mvs_pipeline_tpu.ops import matching as M
-from sfm_mvs_pipeline_tpu.ops import pairs as PR
+from sfm_mvs_pipeline.ops import matching as M
+from sfm_mvs_pipeline.ops import pairs as PR
 
 
 def _rand_desc(rng, n, d=128):
@@ -60,95 +60,105 @@ def test_hamming_expansion_matches_cv(rng):
         assert float(ssq[q]) == pytest.approx(4.0 * m2[1].distance)
 
 
-def test_pallas_interpret_matches_jnp(rng):
-    from sfm_mvs_pipeline_tpu.ops.pallas.match_kernel import two_nn_pallas
+def _int_desc(rng, shape):
+    # uint8-range integers: exact in bf16, every sum below 2^24
+    return rng.integers(0, 256, size=shape).astype(np.float32)
 
-    dq = jnp.asarray(_rand_desc(rng, 300))
-    dt = jnp.asarray(_rand_desc(rng, 280))
+
+@pytest.mark.parametrize("kind", ["sift", "orb"])
+def test_fast_mode_exact_on_integer_descriptors(rng, kind):
+    """fast mode (bf16 operands, f32 accumulation) gives the f32 reference's
+    neighbours, distances and masks bit for bit on uint8-range SIFT and on
+    the +-1 ORB expansion."""
+    if kind == "sift":
+        dq, dt = _int_desc(rng, (300, 128)), _int_desc(rng, (280, 128))
+        dt[:90] = np.clip(dq[:90] + rng.integers(-4, 5, (90, 128)), 0, 255)
+    else:
+        u = rng.integers(0, 256, size=(580, 32), dtype=np.uint8)
+        e = np.asarray(M.expand_binary_descriptors(jnp.asarray(u)))
+        dq, dt = e[:300], e[300:]
     vq = jnp.asarray(np.arange(300) < 290)
     vt = jnp.asarray(np.arange(280) < 270)
-
-    bi_j, b_j, s_j = M.two_nn_jnp(dq, dt, vq, vt)
-    bi_p, b_p, s_p = two_nn_pallas(dq, dt, vq, vt, interpret=True)
-
-    # off-TPU the kernel keeps f32 HIGHEST dots (the bf16 hi|lo split is
-    # TPU-only, where the MXU accumulates in f32), so the CPU interpret
-    # path is exact vs the jnp oracle
-    np.testing.assert_array_equal(np.asarray(bi_p)[:290], np.asarray(bi_j)[:290])
-    np.testing.assert_allclose(np.asarray(b_p)[:290], np.asarray(b_j)[:290], rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(s_p)[:290], np.asarray(s_j)[:290], rtol=1e-5)
-
-
-def test_split3_operand_accuracy(rng):
-    """The kernel's exact mode uses the 3-term bf16 split
-    [q_hi|q_lo|q_hi].[t_hi|t_hi|t_lo] = qhi.thi + qlo.thi + qhi.tlo.
-    Pin the FORMULA's accuracy in pure numpy emulation of the MXU
-    (bf16-rounded operands, f32 products/accumulation): ~1e-6 relative,
-    vs ~1e-3 for a plain bf16 pass — the r3 ADVICE finding was that the
-    old 2-term split only achieved the plain-bf16 level."""
-    import jax
-
-    def to_bf16(x):
-        return np.asarray(jnp.asarray(x, jnp.float32).astype(jnp.bfloat16), np.float32)
-
-    q = np.abs(rng.normal(size=(256, 128))).astype(np.float32) * 20.0
-    t = np.abs(rng.normal(size=(256, 128))).astype(np.float32) * 20.0
-    exact = q.astype(np.float64) @ t.astype(np.float64).T
-
-    q_hi = to_bf16(q)
-    q_lo = to_bf16(q - q_hi)
-    t_hi = to_bf16(t)
-    t_lo = to_bf16(t - t_hi)
-
-    plain = q_hi @ t_hi.T
-    split3 = q_hi @ t_hi.T + q_lo @ t_hi.T + q_hi @ t_lo.T
-
-    rel_plain = np.abs(plain - exact) / np.abs(exact)
-    rel_split3 = np.abs(split3 - exact) / np.abs(exact)
-    assert rel_plain.max() > 1e-4  # plain bf16 really is ~1e-3-class
-    assert rel_split3.max() < 1e-5, f"split3 max rel err {rel_split3.max()}"
+    bi_j, b_j, s_j = M.two_nn_jnp(jnp.asarray(dq), jnp.asarray(dt), vq, vt)
+    m_j = np.asarray(M.ratio_test_mask(b_j, s_j, vq))
+    bi, m, dist = M.match_pair(jnp.asarray(dq), jnp.asarray(dt), vq, vt,
+                               with_distance=True)
+    np.testing.assert_array_equal(np.asarray(m), m_j)
+    np.testing.assert_array_equal(np.asarray(bi)[:290], np.asarray(bi_j)[:290])
+    np.testing.assert_array_equal(
+        np.asarray(dist)[m_j], np.sqrt(np.asarray(b_j))[m_j]
+    )
 
 
-def test_pallas_exact_mode_interpret(rng):
-    """exact=True must preserve the contract on the off-TPU branch too."""
-    from sfm_mvs_pipeline_tpu.ops.pallas.match_kernel import two_nn_pallas
+def test_fast_mode_exact_on_extracted_sift():
+    """The SIFT extractor emits cv2-convention integers in [0, 255], so fast
+    mode matches the bundled insel frames exactly as exact mode does."""
+    import os
 
+    from sfm_mvs_pipeline.ops.sift import sift_features
+    from sfm_mvs_pipeline.utils.images import list_images, load_gray_batch
+
+    insel = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "sample_data", "insel")
+    imgs, _ = load_gray_batch(list_images(insel))
+    feats = sift_features(jnp.asarray(imgs), max_features=1024,
+                          contrast_threshold=0.09)
+    descs = np.asarray(feats["descriptors"])
+    valid = np.asarray(feats["valid"])
+    assert valid.sum() > 300
+    d = descs[valid]
+    np.testing.assert_array_equal(d, np.round(d))
+    assert d.min() >= 0 and d.max() <= 255 and d.max() > 100
+    pairs = jnp.asarray(PR.unordered_pairs(len(imgs)))
+    fast = M.match_pairs_batch(jnp.asarray(descs), jnp.asarray(valid), pairs,
+                               with_distance=True)
+    exact = M.match_pairs_batch(jnp.asarray(descs), jnp.asarray(valid), pairs,
+                                with_distance=True, exact=True)
+    assert np.asarray(fast[1]).sum() > 50
+    for a, b in zip(fast, exact):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_exact_mode_matches_reference(rng):
+    """exact=True keeps f32 operands: on float descriptors the matches and
+    distances are the f32 reference's."""
     dq = jnp.asarray(_rand_desc(rng, 300))
     dt = jnp.asarray(_rand_desc(rng, 280))
     vq = jnp.ones(300, bool)
     vt = jnp.ones(280, bool)
     bi_j, b_j, s_j = M.two_nn_jnp(dq, dt, vq, vt)
-    bi_p, b_p, s_p = two_nn_pallas(dq, dt, vq, vt, interpret=True, exact=True)
-    np.testing.assert_array_equal(np.asarray(bi_p), np.asarray(bi_j))
-    np.testing.assert_allclose(np.asarray(b_p), np.asarray(b_j), rtol=1e-5)
+    bi, m, dist = M.match_pair(dq, dt, vq, vt, exact=True, with_distance=True)
+    m_j = np.asarray(M.ratio_test_mask(b_j, s_j, vq))
+    np.testing.assert_array_equal(np.asarray(m), m_j)
+    np.testing.assert_array_equal(np.asarray(bi), np.asarray(bi_j))
+    np.testing.assert_array_equal(np.asarray(dist), np.sqrt(np.asarray(b_j)))
 
 
-def test_fused_batch_matches_jnp(rng):
-    """The fused batched TPU fast path (two_nn_batch_fused: one Pallas
-    dispatch for all pairs, scalar-prefetched pair table, in-kernel operand
-    prep + |q|^2 add-back) must agree with the jnp oracle pair by pair."""
-    from sfm_mvs_pipeline_tpu.ops.pallas.match_kernel import (
-        two_nn_batch_fused,
-    )
-
-    S, F, D = 3, 200, 128
-    descs = jnp.asarray(
-        rng.integers(0, 128, size=(S, F, D)).astype(np.float32)
-    )
-    valid = jnp.asarray(rng.random((S, F)) > 0.1)
-    pairs = jnp.asarray([(0, 1), (2, 0), (1, 2)], jnp.int32)
-    bi_f, b_f, s_f = two_nn_batch_fused(descs, valid, pairs, interpret=True)
-    for k, (a, b) in enumerate(((0, 1), (2, 0), (1, 2))):
-        bi_j, b_j, s_j = M.two_nn_jnp(descs[a], descs[b], valid[a], valid[b])
-        m_j = np.asarray(M.ratio_test_mask(b_j, s_j, valid[a]))
-        m_p = np.asarray(M.ratio_test_mask(b_f[k], s_f[k], valid[a]))
-        np.testing.assert_array_equal(m_p, m_j)
-        np.testing.assert_array_equal(
-            np.asarray(bi_f[k])[m_j], np.asarray(bi_j)[m_j]
-        )
-        np.testing.assert_allclose(
-            np.asarray(b_f[k])[m_j], np.asarray(b_j)[m_j], rtol=1e-6
-        )
+@pytest.mark.gpu
+def test_matcher_precision_on_gpu(rng):
+    """On the card, the f32 reference runs at full precision (the package
+    sets "highest", so no TF32) and fast mode equals it on integer
+    descriptors. Runs only where JAX's backend is a GPU."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: checks the card's matmul precision")
+    S, F = 4, 3000
+    descs = jnp.asarray(_int_desc(rng, (S, F, 128)))
+    valid = jnp.asarray(rng.random((S, F)) > 0.05)
+    pairs = jnp.asarray(PR.unordered_pairs(S))
+    fast = M.match_pairs_batch(descs, valid, pairs, with_distance=True)
+    exact = M.match_pairs_batch(descs, valid, pairs, with_distance=True,
+                                exact=True)
+    for a, b in zip(fast, exact):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    d = np.asarray(descs, np.float64)
+    for k, (a, b) in enumerate(np.asarray(pairs)):
+        sq = ((d[a][:, None] - d[b][None]) ** 2).sum(-1)
+        sq[:, ~np.asarray(valid[b])] = np.inf
+        m = np.asarray(exact[1][k])
+        np.testing.assert_array_equal(np.asarray(exact[0][k])[m],
+                                      sq.argmin(1)[m])
+        np.testing.assert_allclose(np.asarray(exact[2][k], np.float64)[m] ** 2,
+                                   sq.min(1)[m], rtol=1e-6)
 
 
 def test_distinct_filter():
@@ -166,7 +176,7 @@ def test_match_pairs_batch(rng):
     valid = np.ones((S, F), bool)
     pairs = PR.unordered_pairs(S)
     bi, mask = M.match_pairs_batch(
-        jnp.asarray(descs), jnp.asarray(valid), jnp.asarray(pairs), backend="jnp"
+        jnp.asarray(descs), jnp.asarray(valid), jnp.asarray(pairs)
     )
     assert bi.shape == (len(pairs), F)
     m01 = np.asarray(mask[0])

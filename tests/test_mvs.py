@@ -4,14 +4,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sfm_mvs_pipeline_tpu.mvs.plane_sweep import (
+from sfm_mvs_pipeline.mvs.plane_sweep import (
     make_depth_planes,
     sweep_cost_volume,
     wta_depth,
 )
-from sfm_mvs_pipeline_tpu.mvs.sgm import sgm_aggregate
-from sfm_mvs_pipeline_tpu.mvs.fusion import fuse_depth_maps
-from sfm_mvs_pipeline_tpu.mvs.mesh import mesh_from_depth_maps
+from sfm_mvs_pipeline.mvs.sgm import sgm_aggregate
+from sfm_mvs_pipeline.mvs.fusion import fuse_depth_maps
+from sfm_mvs_pipeline.mvs.mesh import mesh_from_depth_maps
 
 
 H, W, F = 120, 160, 140.0
@@ -145,58 +145,51 @@ def test_fusion_and_mesh(plane_scene):
     assert on_plane_v.mean() > 0.9
 
 
-def test_pallas_sgm_matches_scan(rng):
-    """The Pallas bidirectional kernel (interpret mode on CPU) must equal the
-    lax.scan reference for both scan axes, including non-aligned shapes."""
-    from sfm_mvs_pipeline_tpu.mvs.sgm import _scan_dir
-    from sfm_mvs_pipeline_tpu.ops.pallas.sgm_kernel import sgm_bidir_pallas
+def _np_sgm(cost, p1, p2):
+    """Straight numpy replica of 4-path SGM over a (D, H, W) volume: for each
+    direction r, L_r(p, d) = C(p, d) + min(L_r(p-r, d), L_r(p-r, d+-1) + P1,
+    min_d' L_r(p-r, d') + P2) - min_d' L_r(p-r, d'); the result is the mean
+    of the four paths."""
+    c = np.moveaxis(cost.astype(np.float64), 0, -1)  # (H, W, D)
 
-    h, w, d = 13, 21, 37
-    v = jnp.asarray(rng.random((h, w, d)).astype(np.float32))
-    p1, p2 = 0.05, 0.4
-    lr = jnp.swapaxes(_scan_dir(jnp.swapaxes(v, 0, 1), p1, p2), 0, 1)
-    rl = jnp.swapaxes(_scan_dir(jnp.swapaxes(v, 0, 1)[::-1], p1, p2)[::-1], 0, 1)
-    out = sgm_bidir_pallas(v, p1, p2, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(lr + rl), atol=1e-6)
+    def one_dir(v):  # scan along axis 0 of (S, L, D)
+        out = np.empty_like(v)
+        out[0] = v[0]
+        for i in range(1, len(v)):
+            prev = out[i - 1]
+            m = prev.min(-1, keepdims=True)
+            pad = np.pad(prev, ((0, 0), (1, 1)), constant_values=np.inf)
+            best = np.minimum.reduce(
+                [prev, pad[:, :-2] + p1, pad[:, 2:] + p1,
+                 np.broadcast_to(m + p2, prev.shape)]
+            )
+            out[i] = v[i] + best - m
+        return out
 
-    tb = _scan_dir(v, p1, p2)
-    bt = _scan_dir(v[::-1], p1, p2)[::-1]
-    out_v = jnp.swapaxes(
-        sgm_bidir_pallas(jnp.swapaxes(v, 0, 1), p1, p2, interpret=True), 0, 1
-    )
-    np.testing.assert_allclose(np.asarray(out_v), np.asarray(tb + bt), atol=1e-6)
+    tb = one_dir(c)
+    bt = one_dir(c[::-1])[::-1]
+    cw = np.swapaxes(c, 0, 1)
+    lr = np.swapaxes(one_dir(cw), 0, 1)
+    rl = np.swapaxes(one_dir(cw[::-1])[::-1], 0, 1)
+    return np.moveaxis((tb + bt + lr + rl) / 4.0, -1, 0)
 
 
-def test_sgm_staged_matches_scan(rng):
-    """The r5 memory-staged 4-path SGM (single-direction aliased-accumulator
-    sweeps over bf16 cost copies) must match the lax.scan reference up to
-    the bf16 rounding of its cost input. Run with bf16-exact integer-grid
-    costs so the comparison is tight."""
-    from sfm_mvs_pipeline_tpu.mvs.sgm import _scan_dir
-    from sfm_mvs_pipeline_tpu.ops.pallas.sgm_kernel import sgm_staged_hwd
-
-    h, w, d = 13, 21, 37
-    # costs on a 1/64 grid in [0, 2): exactly representable in bf16
-    v = jnp.asarray(
-        (rng.integers(0, 128, size=(h, w, d)) / 64.0).astype(np.float32)
-    )
-    p1, p2 = 0.0625, 0.5  # powers of two: exact in every dtype
-    lr = jnp.swapaxes(_scan_dir(jnp.swapaxes(v, 0, 1), p1, p2), 0, 1)
-    rl = jnp.swapaxes(_scan_dir(jnp.swapaxes(v, 0, 1)[::-1], p1, p2)[::-1], 0, 1)
-    tb = _scan_dir(v, p1, p2)
-    bt = _scan_dir(v[::-1], p1, p2)[::-1]
-    want = np.asarray(lr + rl + tb + bt)
-
-    out = sgm_staged_hwd(v, p1, p2, interpret=True)
-    np.testing.assert_allclose(np.asarray(out)[:, :, :d], want, atol=1e-5)
+@pytest.mark.parametrize("shape", [(5, 7, 9), (12, 16, 3)])
+@pytest.mark.parametrize("p1,p2", [(0.03, 0.3), (0.1, 1.0)])
+def test_sgm_aggregate_matches_numpy(rng, shape, p1, p2):
+    """sgm_aggregate (four lax.scan recurrences) against the numpy replica,
+    on a wide and a tall volume."""
+    cost = rng.random(shape).astype(np.float32)
+    got = np.asarray(sgm_aggregate(jnp.asarray(cost), p1, p2))
+    np.testing.assert_allclose(got, _np_sgm(cost, p1, p2), atol=1e-5)
 
 
 def test_texture_and_refine(plane_scene, tmp_path):
     """Texture atlas + textured PLY + photometric refinement on the synthetic
     scene: every face with a visible view gets one, texels come from real
     image content, refinement never degrades vertices with no photo signal."""
-    from sfm_mvs_pipeline_tpu.mvs.refine import refine_mesh_photometric
-    from sfm_mvs_pipeline_tpu.mvs.texture import (
+    from sfm_mvs_pipeline.mvs.refine import refine_mesh_photometric
+    from sfm_mvs_pipeline.mvs.texture import (
         build_texture_atlas,
         select_face_views,
         write_ply_mesh_textured,
@@ -227,7 +220,7 @@ def test_texture_and_refine(plane_scene, tmp_path):
     # our own reader must round-trip the textured mesh: the face element
     # carries BOTH a vertex_indices list and a texcoord list per face
     # (regression: the reader used to misparse texcoord bytes as faces)
-    from sfm_mvs_pipeline_tpu.utils.ply import read_ply
+    from sfm_mvs_pipeline.utils.ply import read_ply
 
     back = read_ply(out)
     assert len(back["points"]) == len(V)
@@ -244,7 +237,7 @@ def test_close_holes():
     """A grid mesh with one interior quad hole gets filled; the outer
     border (too large) stays open. Ref parity: mesh.Clean close-holes 30
     (src/photogrammetrie/mvs/MVS.cpp:160-166)."""
-    from sfm_mvs_pipeline_tpu.mvs.mesh import close_holes
+    from sfm_mvs_pipeline.mvs.mesh import close_holes
 
     n = 12
     yy, xx = np.mgrid[0:n, 0:n]
@@ -288,7 +281,7 @@ def test_patchmatch_depth(plane_scene):
     (ref default dense path: MVS.cpp:118 DenseReconstruction(0))."""
     import jax
 
-    from sfm_mvs_pipeline_tpu.mvs.patchmatch import patchmatch_depth
+    from sfm_mvs_pipeline.mvs.patchmatch import patchmatch_depth
 
     grays, gt, poses, intr = plane_scene
     r, nbrs = 2, [0, 1, 3, 4]
@@ -315,7 +308,7 @@ def test_patchmatch_seeded_matches_unseeded(plane_scene):
     """Seeding from a coarse depth (the ladder path) must not hurt."""
     import jax
 
-    from sfm_mvs_pipeline_tpu.mvs.patchmatch import patchmatch_depth
+    from sfm_mvs_pipeline.mvs.patchmatch import patchmatch_depth
 
     grays, gt, poses, intr = plane_scene
     r, nbrs = 2, [0, 1, 3, 4]
@@ -338,7 +331,7 @@ def test_rectified_depth(plane_scene):
     """The gather-free rectified disparity engine must resolve the
     two-plane scene like the plane sweep (same ZNCC scoring; per-pair WTA
     + cross-neighbor consensus instead of joint aggregation)."""
-    from sfm_mvs_pipeline_tpu.mvs.rectified import rectified_depth
+    from sfm_mvs_pipeline.mvs.rectified import rectified_depth
 
     grays, gt, poses, intr = plane_scene
     r, nbrs = 2, [0, 1, 3, 4]
@@ -358,7 +351,7 @@ def test_rectified_depth(plane_scene):
 def test_rectified_degenerate_baseline_masked(plane_scene):
     """A pure forward-motion pair (baseline along the optical axis) cannot
     be rectified: the engine must mask it out instead of producing junk."""
-    from sfm_mvs_pipeline_tpu.mvs.rectified import rectified_pair_depth
+    from sfm_mvs_pipeline.mvs.rectified import rectified_pair_depth
 
     grays, gt, poses, intr = plane_scene
     pose_fwd = np.zeros(6, np.float32)
@@ -379,9 +372,9 @@ def test_rect_forward_motion_falls_back_to_sweep(tmp_path):
     warp-based plane sweep."""
     import cv2
 
-    from sfm_mvs_pipeline_tpu.models.scene import Scene
-    from sfm_mvs_pipeline_tpu.mvs.pipeline import MVSConfig, run_mvs
-    from sfm_mvs_pipeline_tpu.mvs.rectified import rect_geometry_ok
+    from sfm_mvs_pipeline.models.scene import Scene
+    from sfm_mvs_pipeline.mvs.pipeline import MVSConfig, run_mvs
+    from sfm_mvs_pipeline.mvs.rectified import rect_geometry_ok
 
     rng = np.random.default_rng(11)
     centers = np.array([[0, 0, 0], [0, 0, 0.5], [0, 0, 1.0]])  # forward motion
@@ -461,7 +454,7 @@ def test_rect_forward_motion_falls_back_to_sweep(tmp_path):
 def test_derive_max_disp():
     """The static disparity bound must scale with focal x baseline / z_min
     (the r3 hard-coded 256 truncated the near range at the 3200-px ladder)."""
-    from sfm_mvs_pipeline_tpu.mvs.rectified import derive_max_disp
+    from sfm_mvs_pipeline.mvs.rectified import derive_max_disp
 
     pose_r = np.zeros(6, np.float32)
     pose_n = np.zeros((1, 6), np.float32)
@@ -480,8 +473,8 @@ def test_rect_ladder_resize_1080p(tmp_path):
     through the rect engine, with the geometry-derived disparity bound."""
     import cv2
 
-    from sfm_mvs_pipeline_tpu.models.scene import Scene
-    from sfm_mvs_pipeline_tpu.mvs.pipeline import MVSConfig, run_mvs
+    from sfm_mvs_pipeline.models.scene import Scene
+    from sfm_mvs_pipeline.mvs.pipeline import MVSConfig, run_mvs
 
     h2, w2, f2 = 810, 1440, 1700.0
     rng = np.random.default_rng(7)
@@ -568,7 +561,7 @@ def test_rect_ladder_resize_1080p(tmp_path):
 def test_rectified_sgm(plane_scene):
     """--sgm through the rectified engine: 4-path aggregation on the
     per-pair disparity volume must hold (or improve) the two-plane scene."""
-    from sfm_mvs_pipeline_tpu.mvs.rectified import rectified_depth
+    from sfm_mvs_pipeline.mvs.rectified import rectified_depth
 
     grays, gt, poses, intr = plane_scene
     r, nbrs = 2, [0, 1, 3, 4]

@@ -8,9 +8,9 @@ import sys
 import numpy as np
 import pytest
 
-from sfm_mvs_pipeline_tpu import native
-from sfm_mvs_pipeline_tpu.utils.ply import read_ply, write_ply_mesh, write_ply_points
-from sfm_mvs_pipeline_tpu.utils.stats import knn_distances
+from sfm_mvs_pipeline import native
+from sfm_mvs_pipeline.utils.ply import read_ply, write_ply_mesh, write_ply_points
+from sfm_mvs_pipeline.utils.stats import knn_distances
 
 
 def _brute_kth(pts, k):
@@ -54,19 +54,19 @@ def test_native_ply_roundtrip(tmp_path, rng):
 
 
 def test_python_fallback_matches_native(tmp_path, rng):
-    """With SFM_TPU_NO_NATIVE set, knn_distances and the PLY writers take the
+    """With SFM_NO_NATIVE set, knn_distances and the PLY writers take the
     numpy path and must produce identical results/files as the native path."""
     pts = rng.normal(size=(128, 3))
     code = (
         "import numpy as np\n"
-        "from sfm_mvs_pipeline_tpu.utils.stats import knn_distances\n"
-        "from sfm_mvs_pipeline_tpu.utils.ply import write_ply_points\n"
+        "from sfm_mvs_pipeline.utils.stats import knn_distances\n"
+        "from sfm_mvs_pipeline.utils.ply import write_ply_points\n"
         f"pts = np.load({str(tmp_path / 'pts.npy')!r})\n"
         f"np.save({str(tmp_path / 'd.npy')!r}, knn_distances(pts))\n"
         f"write_ply_points({str(tmp_path / 'py.ply')!r}, pts)\n"
     )
     np.save(tmp_path / "pts.npy", pts)
-    env = dict(os.environ, SFM_TPU_NO_NATIVE="1", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, SFM_NO_NATIVE="1", JAX_PLATFORMS="cpu")
     subprocess.run([sys.executable, "-c", code], check=True, env=env)
     d_py = np.load(tmp_path / "d.npy")
     np.testing.assert_allclose(d_py, knn_distances(pts), rtol=1e-5, atol=1e-6)

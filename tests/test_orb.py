@@ -4,8 +4,8 @@ import numpy as np
 import cv2
 import jax.numpy as jnp
 
-from sfm_mvs_pipeline_tpu.ops.orb import orb_features
-from sfm_mvs_pipeline_tpu.ops.matching import (
+from sfm_mvs_pipeline.ops.orb import orb_features
+from sfm_mvs_pipeline.ops.matching import (
     expand_binary_descriptors,
     ratio_test_mask,
     two_nn_jnp,
@@ -19,12 +19,12 @@ def _insel(n=2):
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "sample_data", "insel",
     )
-    return np.stack(
-        [
-            cv2.imread(os.path.join(base, f"{i}.jpg"), cv2.IMREAD_GRAYSCALE)
-            for i in range(1, n + 1)
-        ]
+    from sfm_mvs_pipeline.utils.images import load_gray_batch
+
+    imgs, _ = load_gray_batch(
+        [os.path.join(base, f"{i}.png") for i in range(1, n + 1)]
     )
+    return np.round(imgs * 255.0).astype(np.uint8)
 
 
 def test_orb_detects_and_matches_insel():

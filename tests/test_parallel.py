@@ -4,15 +4,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sfm_mvs_pipeline_tpu.parallel.mesh import make_mesh
-from sfm_mvs_pipeline_tpu.parallel.matching import match_pairs_sharded
-from sfm_mvs_pipeline_tpu.parallel.ba import (
+from sfm_mvs_pipeline.parallel.mesh import make_mesh
+from sfm_mvs_pipeline.parallel.matching import match_pairs_sharded
+from sfm_mvs_pipeline.parallel.ba import (
     run_bundle_adjustment_sharded,
     shard_scene_by_points,
 )
-from sfm_mvs_pipeline_tpu.ops.matching import match_pairs_batch
-from sfm_mvs_pipeline_tpu.ops.pairs import unordered_pairs
-from sfm_mvs_pipeline_tpu.sfm.ba import BAConfig, run_bundle_adjustment
+from sfm_mvs_pipeline.ops.matching import match_pairs_batch
+from sfm_mvs_pipeline.ops.pairs import unordered_pairs
+from sfm_mvs_pipeline.sfm.ba import BAConfig, run_bundle_adjustment
 
 
 def test_mesh_has_8_devices():
@@ -28,10 +28,10 @@ def test_sharded_matching_equals_single(rng):
 
     mesh = make_mesh()
     idx_s, mask_s = match_pairs_sharded(
-        mesh, descs, valid, pairs, backend="jnp"
+        mesh, descs, valid, pairs
     )
     idx_1, mask_1 = match_pairs_batch(
-        jnp.asarray(descs), jnp.asarray(valid), jnp.asarray(pairs), backend="jnp"
+        jnp.asarray(descs), jnp.asarray(valid), jnp.asarray(pairs)
     )
     np.testing.assert_array_equal(mask_s, np.asarray(mask_1))
     np.testing.assert_array_equal(
@@ -112,7 +112,7 @@ def test_distributed_single_process_degenerates():
     import jax
     from jax.sharding import PartitionSpec as P, NamedSharding
 
-    from sfm_mvs_pipeline_tpu.parallel.distributed import (
+    from sfm_mvs_pipeline.parallel.distributed import (
         all_hosts_agree,
         assemble_global,
         host_shard,
@@ -120,7 +120,7 @@ def test_distributed_single_process_degenerates():
         process_count,
         process_index,
     )
-    from sfm_mvs_pipeline_tpu.parallel.mesh import make_mesh
+    from sfm_mvs_pipeline.parallel.mesh import make_mesh
 
     assert initialize_distributed() is False
     assert process_count() == 1 and process_index() == 0

@@ -4,13 +4,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sfm_mvs_pipeline_tpu.mvs.plane_sweep import (
+from sfm_mvs_pipeline.mvs.plane_sweep import (
     make_depth_planes,
     sweep_cost_volume,
     wta_depth,
 )
-from sfm_mvs_pipeline_tpu.parallel.mesh import make_mesh
-from sfm_mvs_pipeline_tpu.parallel.mvs import (
+from sfm_mvs_pipeline.parallel.mesh import make_mesh
+from sfm_mvs_pipeline.parallel.mvs import (
     compute_depth_maps_sharded,
     fixed_neighbor_table,
 )
@@ -134,7 +134,7 @@ def test_sharded_patchmatch(rng):
 def test_sharded_rect_matches_sequential(rng):
     """method="rect" (the gather-free default engine) through the sharded
     path equals the sequential per-view calls and recovers the z=5 plane."""
-    from sfm_mvs_pipeline_tpu.mvs.rectified import rectified_depth
+    from sfm_mvs_pipeline.mvs.rectified import rectified_depth
 
     grays, poses, intr = _camera_ring(rng)
     V = len(grays)

@@ -1,4 +1,4 @@
-"""r5 rectified-frame PatchMatch: Pallas scorer vs numpy replica + e2e."""
+"""Fused two-view pair program, and PatchMatch on a constant-disparity pair."""
 
 import numpy as np
 import jax
@@ -6,117 +6,11 @@ import jax.numpy as jnp
 import pytest
 
 
-def _np_score(cands, ref, nbr, in_n, r_mean, r_var, maxd, r):
-    """Straight numpy replica of pm_score_rect's semantics."""
-    c, h, w = cands.shape
-    area = (2 * r + 1) ** 2
-    maxd_pad = -(-max(maxd, 1) // 128) * 128
-    nbr_val = np.where(in_n, nbr, 0.0)
-    msk = in_n.astype(np.float64)
-    out = np.ones((c, h, w), np.float64)
-    padn = np.pad(nbr_val, ((0, 0), (maxd_pad, 256)))
-    padm = np.pad(msk, ((0, 0), (maxd_pad, 256)))
-    for ci in range(c):
-        for y in range(h):
-            for x in range(w):
-                d = cands[ci, y, x]
-                di = np.floor(d)
-                fr = d - di
-                base = maxd_pad + x - int(di)
-                # source position (x + o - di) - fr: bilinear partner is
-                # the tap at base + o - 1 (toward smaller index); ref tap
-                # is zero outside the image (zero-padded buffer)
-                sn = snn = srn = 0.0
-                for dy in range(-r, r + 1):
-                    yy = np.clip(y + dy, 0, h - 1)
-                    for o in range(-r, r + 1):
-                        g0 = padn[yy, base + o]
-                        gm = padn[yy, base + o - 1]
-                        s_o = (1 - fr) * g0 + fr * gm
-                        rt = ref[yy, x + o] if 0 <= x + o < w else 0.0
-                        sn += s_o
-                        snn += s_o * s_o
-                        srn += rt * s_o
-                m0 = padm[y, base]
-                m1 = padm[y, base - 1]
-                inside = (m0 * m1) > 0.5
-                n_mean = sn / area
-                n_var = max(snn / area - n_mean * n_mean, 1e-8)
-                cov = srn / area - r_mean[y, x] * n_mean
-                zncc = cov / np.sqrt(r_var[y, x] * n_var)
-                cost = (1.0 - np.clip(zncc, -1, 1)) * 0.5
-                out[ci, y, x] = cost if inside else 1.0
-    return out
-
-
-def test_pm_score_rect_matches_numpy(rng):
-    from sfm_mvs_pipeline_tpu.mvs.plane_sweep import _box_filter
-    from sfm_mvs_pipeline_tpu.ops.pallas.pm_kernel import pm_score_rect
-
-    h, w, r = 16, 40, 2
-    area = (2 * r + 1) ** 2
-    ref = rng.random((h, w)).astype(np.float32)
-    nbr = rng.random((h, w)).astype(np.float32)
-    in_n = np.ones((h, w), bool)
-    in_n[:, :3] = False
-    cands = (rng.random((2, h, w)) * 20).astype(np.float32)
-
-    r_sum = np.asarray(_box_filter(jnp.asarray(ref), r))
-    r_sq = np.asarray(_box_filter(jnp.asarray(ref * ref), r))
-    r_mean = r_sum / area
-    r_var = np.maximum(r_sq / area - r_mean * r_mean, 1e-8)
-
-    got = np.asarray(pm_score_rect(
-        jnp.asarray(cands), jnp.asarray(ref), jnp.asarray(nbr),
-        jnp.asarray(in_n), jnp.asarray(r_mean), jnp.asarray(r_var),
-        maxd=128, window_radius=r, interpret=True,
-    ))
-    want = _np_score(
-        cands.astype(np.float64), ref.astype(np.float64),
-        nbr.astype(np.float64), in_n, r_mean, r_var, 128, r,
-    )
-    np.testing.assert_allclose(got, want, atol=2e-4)
-
-
-def test_pm_score_strips_match_unstripped(rng):
-    """The x-strip path (wide images) must agree exactly with unstripped
-    scoring away from... everywhere: strips carry ov=128 columns of
-    context so kept windows never see a strip boundary."""
-    from sfm_mvs_pipeline_tpu.mvs.plane_sweep import _box_filter
-    from sfm_mvs_pipeline_tpu.ops.pallas.pm_kernel import pm_score_rect
-
-    h, w, r = 12, 640, 2
-    area = (2 * r + 1) ** 2
-    ref = rng.random((h, w)).astype(np.float32)
-    nbr = rng.random((h, w)).astype(np.float32)
-    in_n = np.ones((h, w), bool)
-    cands = (rng.random((2, h, w)) * 60).astype(np.float32)
-    r_sum = np.asarray(_box_filter(jnp.asarray(ref), r))
-    r_sq = np.asarray(_box_filter(jnp.asarray(ref * ref), r))
-    r_mean = r_sum / area
-    r_var = np.maximum(r_sq / area - r_mean * r_mean, 1e-8)
-
-    args = (
-        jnp.asarray(cands), jnp.asarray(ref), jnp.asarray(nbr),
-        jnp.asarray(in_n), jnp.asarray(r_mean), jnp.asarray(r_var),
-    )
-    whole = np.asarray(
-        pm_score_rect(*args, maxd=128, window_radius=r, interpret=True)
-    )
-    striped = np.asarray(
-        pm_score_rect(
-            *args, maxd=128, window_radius=r, interpret=True,
-            strip_width=384,
-        )
-    )
-    np.testing.assert_array_equal(striped, whole)
-
-
 def test_pairs_fused_matches_sequential(rng):
     """The batched fused pair program (essential -> cheirality ->
     triangulation in one dispatch) must equal the sequential per-pair
     jits given the same RANSAC key."""
-    from sfm_mvs_pipeline_tpu.sfm.incremental import (
+    from sfm_mvs_pipeline.sfm.incremental import (
         _pair_pose_jit,
         _pairs_fused_jit,
         _triangulate_pair_jit,
@@ -130,7 +24,7 @@ def test_pairs_fused_matches_sequential(rng):
     pose_a = np.zeros(6)
     pose_b = np.zeros(6)
     pose_b[3] = -1.0  # baseline
-    from sfm_mvs_pipeline_tpu.ops.pose import aa_to_rotmat_np
+    from sfm_mvs_pipeline.ops.pose import aa_to_rotmat_np
 
     def project(pose, X):
         R = aa_to_rotmat_np(pose[:3])
@@ -171,11 +65,11 @@ def test_pairs_fused_matches_sequential(rng):
     assert int(n_inl[0]) == int(np.asarray(em_s).sum())
 
 
-def test_pm_rect_pair_recovers_shift(rng):
-    """A laterally-shifted constant-disparity pair: PatchMatch must recover
-    the planar depth (identity rotation -> the rectified frame is the
-    original frame)."""
-    from sfm_mvs_pipeline_tpu.mvs.patchmatch import patchmatch_rect_depth
+def test_patchmatch_depth_recovers_shift(rng):
+    """A laterally-shifted constant-disparity pair (the pair of the former
+    rectified-frame PatchMatch test): the warp-based PatchMatch must
+    recover the fronto-parallel plane's depth."""
+    from sfm_mvs_pipeline.mvs.patchmatch import patchmatch_depth
 
     h, w = 32, 64
     f, b, z = 50.0, 1.0, 5.0
@@ -192,11 +86,10 @@ def test_pm_rect_pair_recovers_shift(rng):
     pose_n[3] = -b
     intr = np.asarray([f, w / 2, h / 2, 0, 0, 0, 0], np.float32)
 
-    dep, cost, valid = patchmatch_rect_depth(
+    dep, cost, valid = patchmatch_depth(
         jnp.asarray(ref), jnp.asarray(nbr)[None], jnp.asarray(pose_r),
         jnp.asarray(pose_n)[None], jnp.asarray(intr), 2.0, 12.0,
-        jax.random.PRNGKey(0), iterations=4, window_radius=2,
-        max_disp=128, interpret=True,
+        jax.random.PRNGKey(0), iterations=6, window_radius=2,
     )
     dep = np.asarray(dep)
     valid = np.array(valid)

@@ -9,7 +9,7 @@ hypotheses for view registration. The reference stack is immune because
 cv::findEssentialMat is Nister's 5-point (SfM.cpp:525) and cv::solvePnP's
 EPnP has a planar special case.
 
-This test pins the TPU-side countermeasures end to end:
+This test pins this pipeline's countermeasures end to end:
   * E-vs-H model selection (ops/epipolar.py::two_view_model_scores) with
     the Faugeras homography decomposition disambiguated by full-set
     epipolar support,
@@ -22,11 +22,11 @@ import numpy as np
 
 
 def test_planar_scene_end_to_end(tmp_path):
-    from sfm_mvs_pipeline_tpu.cli.app import main
-    from sfm_mvs_pipeline_tpu.ops.pose import aa_to_rotmat
-    from sfm_mvs_pipeline_tpu.utils.checkpoint import load_scene
-    from sfm_mvs_pipeline_tpu.utils.metrics import trajectory_compare
-    from sfm_mvs_pipeline_tpu.utils.synth import render_views
+    from sfm_mvs_pipeline.cli.app import main
+    from sfm_mvs_pipeline.ops.pose import aa_to_rotmat
+    from sfm_mvs_pipeline.utils.checkpoint import load_scene
+    from sfm_mvs_pipeline.utils.metrics import trajectory_compare
+    from sfm_mvs_pipeline.utils.synth import render_views
 
     data = tmp_path / "views"
     _paths, gt_R, gt_C = render_views(

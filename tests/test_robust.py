@@ -5,17 +5,17 @@ import cv2
 import jax
 import jax.numpy as jnp
 
-from sfm_mvs_pipeline_tpu.ops.homography import (
+from sfm_mvs_pipeline.ops.homography import (
     find_homography_ransac,
     homography_inlier_ratio,
 )
-from sfm_mvs_pipeline_tpu.ops.epipolar import (
+from sfm_mvs_pipeline.ops.epipolar import (
     find_essential_ransac,
     recover_pose,
     sampson_error,
 )
-from sfm_mvs_pipeline_tpu.ops.pnp import solve_pnp_ransac
-from sfm_mvs_pipeline_tpu.ops.pose import aa_to_rotmat, camera_center
+from sfm_mvs_pipeline.ops.pnp import solve_pnp_ransac
+from sfm_mvs_pipeline.ops.pose import aa_to_rotmat, camera_center
 
 
 def test_homography_ransac(rng):
@@ -111,7 +111,7 @@ def _planar_two_view_scene(rng, n=150):
 def test_decompose_homography_recovers_planar_pose(rng):
     """Faugeras decomposition + cheirality must recover the true motion
     from a calibrated homography of a planar scene."""
-    from sfm_mvs_pipeline_tpu.ops.epipolar import recover_pose_from_homography
+    from sfm_mvs_pipeline.ops.epipolar import recover_pose_from_homography
 
     pts, R_true, t_true, uv1, uv2, (f, cx, cy) = _planar_two_view_scene(rng)
     xy1 = (uv1 - [cx, cy]) / f
@@ -140,7 +140,7 @@ def test_planar_pair_pose_model_selection(rng):
     """The driver's E-vs-H model selection must survive the planar scene
     that breaks the 8-point essential path (any E = [v]x H fits coplanar
     points exactly, so RANSAC support cannot flag the failure)."""
-    from sfm_mvs_pipeline_tpu.sfm.incremental import _pair_pose_jit
+    from sfm_mvs_pipeline.sfm.incremental import _pair_pose_jit
 
     pts, R_true, t_true, uv1, uv2, (f, cx, cy) = _planar_two_view_scene(rng)
     n = len(uv1)
@@ -175,7 +175,7 @@ def test_two_view_model_scores_direction(rng):
     """S_H/(S_H+S_E) must exceed 0.45 on a planar scene (both models
     explain everything) and stay below it with genuine parallax (H only
     explains the dominant plane's subset)."""
-    from sfm_mvs_pipeline_tpu.ops.epipolar import two_view_model_scores
+    from sfm_mvs_pipeline.ops.epipolar import two_view_model_scores
 
     def scores(planar):
         if planar:

@@ -15,7 +15,7 @@ import numpy as np
 
 
 def _render_views(tmp, n_views=8, h=240, w=320, f=280.0):
-    from sfm_mvs_pipeline_tpu.utils.synth import render_views
+    from sfm_mvs_pipeline.utils.synth import render_views
 
     data = tmp / "views"
     _paths, gt_R, gt_C = render_views(data, n_views, h, w, f)
@@ -23,10 +23,10 @@ def _render_views(tmp, n_views=8, h=240, w=320, f=280.0):
 
 
 def test_synthetic_trajectory_vs_ground_truth(tmp_path):
-    from sfm_mvs_pipeline_tpu.cli.app import main
-    from sfm_mvs_pipeline_tpu.ops.pose import aa_to_rotmat
-    from sfm_mvs_pipeline_tpu.utils.checkpoint import load_scene
-    from sfm_mvs_pipeline_tpu.utils.metrics import trajectory_compare
+    from sfm_mvs_pipeline.cli.app import main
+    from sfm_mvs_pipeline.ops.pose import aa_to_rotmat
+    from sfm_mvs_pipeline.utils.checkpoint import load_scene
+    from sfm_mvs_pipeline.utils.metrics import trajectory_compare
 
     data, gt_R, gt_C = _render_views(tmp_path)
     out = tmp_path / "out"
@@ -63,13 +63,13 @@ def test_synthetic_trajectory_vs_ground_truth(tmp_path):
     assert rel_ate < 0.02, f"relative ATE {rel_ate:.3%}"
     assert cmpres["max_rel_rot_deg"] < 1.0
 
-    # ---- oracle-vs-TPU on >=8 views (VERDICT r3 item 6): the cv2+scipy
-    # re-enactment of the reference stack sees the SAME JPEGs; with 8
+    # ---- oracle-vs-pipeline on >=8 views: the cv2+scipy
+    # re-enactment of the reference stack sees the SAME images; with 8
     # cameras the sim(3) alignment is genuinely constrained (the 3-view
     # insel ATE is nearly guaranteed by DoF counting).
     import cv2
 
-    from sfm_mvs_pipeline_tpu.utils.oracle import OracleConfig, oracle_reconstruct
+    from sfm_mvs_pipeline.utils.oracle import OracleConfig, oracle_reconstruct
 
     vpaths = sorted(str(p) for p in data.iterdir())
     orc = oracle_reconstruct(
@@ -78,7 +78,7 @@ def test_synthetic_trajectory_vs_ground_truth(tmp_path):
     )
     orc_rec = [int(s) for s in orc["recovered"]]
     common = sorted(set(int(s) for s in rec) & set(orc_rec))
-    assert len(common) >= 7, f"oracle/TPU common views {common}"
+    assert len(common) >= 7, f"oracle/pipeline common views {common}"
     ti = [list(rec).index(s) for s in common]
     oi = [orc_rec.index(s) for s in common]
     orc_C = np.asarray(orc["centers"])[oi]
@@ -94,16 +94,16 @@ def test_synthetic_trajectory_vs_ground_truth(tmp_path):
     extent_c = np.linalg.norm(gt_C[common][-1] - gt_C[common][0])
     rel_o = cmp_o["ate_rmse"] / extent_c
     print(
-        f"oracle-vs-TPU ({len(common)} views): ATE {rel_o:.3%} of extent, "
+        f"oracle-vs-pipeline ({len(common)} views): ATE {rel_o:.3%} of extent, "
         f"max rel rot {cmp_o['max_rel_rot_deg']:.3f} deg; "
         f"vs GT: oracle ATE {cmp_og['ate_rmse']/extent_c:.3%} "
         f"rot {cmp_og['max_rel_rot_deg']:.2f} deg, "
-        f"TPU ATE {cmp_tg['ate_rmse']/extent_c:.3%} "
+        f"pipeline ATE {cmp_tg['ate_rmse']/extent_c:.3%} "
         f"rot {cmp_tg['max_rel_rot_deg']:.2f} deg"
     )
     # the two stacks agree in position...
-    assert rel_o < 0.02, f"oracle-vs-TPU relative ATE {rel_o:.3%}"
-    # ...and against the absolute truth the TPU pipeline must be at least
+    assert rel_o < 0.02, f"oracle-vs-pipeline relative ATE {rel_o:.3%}"
+    # ...and against the absolute truth this pipeline must be at least
     # as accurate as the reference re-enactment (this run: the oracle's
     # rotations are the outlier at ~4.5 deg, ours <1 deg — residual
     # rotation disagreement between the stacks is charged to the oracle)

@@ -4,7 +4,7 @@ import numpy as np
 import cv2
 import jax.numpy as jnp
 
-from sfm_mvs_pipeline_tpu.ops.triangulate import triangulate_dlt, triangulate_pair
+from sfm_mvs_pipeline.ops.triangulate import triangulate_dlt, triangulate_pair
 
 
 def test_dlt_matches_cv_triangulate(synthetic_scene):
@@ -30,7 +30,7 @@ def test_dlt_matches_cv_triangulate(synthetic_scene):
 def test_triangulate_pair_filters(synthetic_scene):
     s = synthetic_scene
     (R1, t1), (R2, t2) = s["poses"][1], s["poses"][4]
-    import sfm_mvs_pipeline_tpu.ops.pose as P
+    import sfm_mvs_pipeline.ops.pose as P
 
     pose1 = jnp.concatenate(
         [P.rotmat_to_aa(jnp.asarray(R1)), jnp.asarray(t1)]
